@@ -30,7 +30,9 @@ def dataset_main(path: str, preset: str, out: str | None) -> None:
     import numpy as np
 
     from slam_constructor_tpu.models import gmapping, tiny, viny
-    from slam_constructor_tpu.utils import dataset, evaluate, trajectory
+    from slam_constructor_tpu.utils import compile_cache, dataset, evaluate, trajectory
+
+    compile_cache.enable()
 
     log = dataset.read_carmen(path)
     scans, odom, ts = dataset.to_sequence(log)
@@ -58,7 +60,7 @@ def dataset_main(path: str, preset: str, out: str | None) -> None:
         if gt is not None:
             e.state = e.state.replace(pose=jnp.asarray(gt[0]))
         traj, _ = e.run(scans, odom)
-    np.asarray(traj)
+    jax.block_until_ready(traj)
     dt = time.perf_counter() - t0
 
     rec = {"preset": preset, "dataset": os.path.basename(path), "scans": n,
@@ -83,7 +85,9 @@ def main():
     import numpy as np
 
     from slam_constructor_tpu.models import full, gmapping, posegraph as pg, tiny, viny
-    from slam_constructor_tpu.utils import datagen, evaluate
+    from slam_constructor_tpu.utils import compile_cache, datagen, evaluate
+
+    compile_cache.enable()
 
     n_beams = int(os.environ.get("SLAM_ATE_BEAMS", 120))
     laps = int(os.environ.get("SLAM_ATE_LAPS", 2))
@@ -123,17 +127,15 @@ def main():
     for name, make in [
         ("tiny", lambda: tiny.make_engine(mc_batch=48, mc_rounds=12)),
         ("viny", lambda: viny.make_engine(mc_batch=48, mc_rounds=12)),
-        # every preset with an official throughput row gets a quality leg
-        # here — viny_m3rsm was absent through r4 and its 10.3x rows
-        # shipped with a preset that diverged (r5 fix: overlap reducer +
-        # range>=5 + the dda free-fill pin; see viny.viny_m3rsm_config)
+        # every preset with a throughput row gets a quality leg here (see
+        # viny.viny_m3rsm_config for the constraints that fix its point)
         ("viny_m3rsm", lambda: _Engine(viny.viny_m3rsm_config())),
     ]:
         e = make()
         e.state = e.state.replace(pose=gt[0])
         t0 = time.perf_counter()
         traj, _ = e.run(scans, odom)
-        np.asarray(traj)
+        jax.block_until_ready(traj)
         report(name, traj, t0)
 
     from slam_constructor_tpu.ops import matchers as mlib
@@ -148,7 +150,7 @@ def main():
     e.state = e.state.replace(poses=jnp.broadcast_to(gt[0], (16, 3)))
     t0 = time.perf_counter()
     traj, _ = e.run(scans, odom)
-    np.asarray(traj)
+    jax.block_until_ready(traj)
     dt_run = time.perf_counter() - t0  # frozen: throughput = the RBPF run
     # online = per-step best particle; the RBPF's canonical output is the
     # final winner's genealogy-consistent trajectory (how the reference's
@@ -157,14 +159,13 @@ def main():
     win = e.winner_trajectory()
     report("gmapping", win, t0, dt=dt_run)
 
-    # the >=10x TPU operating point (one-hot windows, 4 m usable range) on
-    # the same harness — the apples-to-apples quality check for the speed
-    # preset (see TPU_BENCH_VARIANTS gmapping_abl_*/gmapping_fast_* rows)
+    # the fast operating point (one-hot windows, 6 m usable range) on the
+    # same harness — the apples-to-apples quality check for the speed preset
     e = gmapping.GMappingEngine(gmapping.fast_config(n_particles=30))
     e.state = e.state.replace(poses=jnp.broadcast_to(gt[0], (30, 3)))
     t0 = time.perf_counter()
     traj, _ = e.run(scans, odom)
-    np.asarray(traj)
+    jax.block_until_ready(traj)
     dt_run = time.perf_counter() - t0
     report("gmapping_fast_online", traj, t0, dt=dt_run)
     report("gmapping_fast", e.winner_trajectory(), t0, dt=dt_run)
@@ -182,7 +183,7 @@ def main():
     e.state = e.state.replace(pose=gt[0])
     t0 = time.perf_counter()
     traj = e.run(scans, odom)
-    np.asarray(traj)
+    jax.block_until_ready(traj)
     report("full_posegraph", traj, t0)
     print(json.dumps({"preset": "full_posegraph_info",
                       "keyframes": int(e.graph.n_kf),

@@ -1,12 +1,12 @@
-"""slam_constructor_tpu — a TPU-native 2D laser SLAM engine.
+"""slam_constructor_tpu — an accelerator-native 2D laser SLAM engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA re-design of the capability surface of
 ``OSLL/slam_constructor`` (C++/ROS): occupancy-grid mapping with pluggable
 grid-cell belief models (Bayesian / Transferable-Belief-Model), Monte-Carlo /
 hill-climbing / brute-force / M3RSM scan matchers, GMapping-style
 particle-filter hypothesis tracking, and keyframe pose-graph optimization with
 loop closure — all expressed as pure functions over array state, jitted and
-sharded over TPU meshes.
+sharded over device meshes. It runs on NVIDIA GPUs (and on the CPU for tests).
 
 Layer map (mirrors SURVEY.md §1, re-architected array-first):
 
@@ -15,7 +15,7 @@ Layer map (mirrors SURVEY.md §1, re-architected array-first):
                  scan matchers, M3RSM, resampling.
 - ``models``   — L3 algorithms: tinySLAM, vinySLAM, GMapping RBPF,
                  pose-graph/loop-closure pipeline, plus the generic engine.
-- ``parallel`` — multi-chip/multi-host sharding: particle sharding, map-block
+- ``parallel`` — multi-device/multi-host sharding: particle sharding, map-block
                  halo exchange, distributed Gauss-Newton reductions.
 - ``utils``    — config presets, synthetic data generation, dataset IO,
                  ATE/RPE evaluation, checkpointing, metrics, profiling.

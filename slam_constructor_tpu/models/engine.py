@@ -27,8 +27,8 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import struct
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
 from ..ops import matchers as matcherslib
@@ -72,10 +72,7 @@ class EngineConfig:
     #: map). One robot-centered window per match (the sanctioned slice
     #: form — CLAUDE.md); EXACT when the window covers the scan's usable
     #: reach from any candidate: window/2 >= beam.max_range/scale +
-    #: search extent. Shrinks the memory-bound one-hot sampling operands
-    #: — the knob that keeps matching fast when HBM bandwidth is the
-    #: constraint (r3: windowed viny_m3rsm outran full-map tiny in an
-    #: HBM-starved chip window).
+    #: search extent. Shrinks the planes every score call reads.
     match_window: int = 0
     #: 'dense' (PlainGridMap-style) or 'tiled' (block-pool LazyTiledGridMap)
     map_storage: str = "dense"

@@ -8,7 +8,7 @@ resampling when Neff drops (which in the reference deep-copies whole maps).
 
 Re-design: the particle axis is a *batch* axis. Every per-particle step —
 matching, weighting, map insertion — is one ``vmap`` dispatch over stacked
-state ``(P, ...)``, so the TPU sees a ``[P*K, R, W]`` score gather instead
+state ``(P, ...)``, so the device sees a ``[P*K, R, W]`` score gather instead
 of a serial particle loop. Resampling gathers the stacked map tensor along
 axis 0 (one device gather; the block-pool map upgrade makes this an index
 copy). The particle axis is also the unit of multi-chip sharding
@@ -23,8 +23,8 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import struct
 from ..ops import cells as cellslib
 from ..ops import grid as gridlib
 from ..ops import matchers as matcherslib
@@ -84,14 +84,14 @@ class GMappingConfig:
     tile_block: int = 32
     tile_capacity: int = 1024
     window_tiles: int = 8
-    #: dense-path matching window (cells, 0 = whole map). Matching FLOPs on
-    #: the MXU sampling path scale with window area, and candidates stay
+    #: dense-path matching window (cells, 0 = whole map). Matching work
+    #: scales with window area, and candidates stay
     #: within beam reach of the prior — a window covering the scan
     #: footprint is exact (scoring.window_view) at a fraction of the cost.
     match_window: int = 0
     #: window extraction for matching: 'slice' (vmap(dynamic_slice) — P
-    #: serialized gathers on TPU) or 'onehot' (batched one-hot matmul,
-    #: bitwise-equal; see insert_impl)
+    #: window gathers) or 'onehot' (batched one-hot matmul, bitwise-equal;
+    #: see insert_impl)
     match_window_impl: str = "slice"
     #: dense-path insertion window (cells, 0 = whole map): rasterize + cell
     #: fold run on a dynamic slice around the particle pose instead of the
@@ -101,11 +101,11 @@ class GMappingConfig:
     insert_window: int = 0
     #: how the insertion window is extracted/written back on the dense path:
     #: 'slice'  — vmap(dynamic_slice/dynamic_update_slice) with traced
-    #:            offsets (P serialized window copies on TPU — the gather
-    #:            lowering CLAUDE.md warns about, acceptable at small P).
+    #:            offsets (P window copies).
     #: 'onehot' — separable one-hot f32 matmuls extract the window and
-    #:            mask+scatter it back (the ops/scoring.py MXU sampling
-    #:            pattern; exact — one-hot f32 matmuls are bitwise on TPU).
+    #:            mask+scatter it back (the ops/scoring.py matmul sampling
+    #:            pattern; exact — one-hot f32 matmuls at HIGHEST precision
+    #:            are bitwise).
     insert_impl: str = "slice"
     #: optional second matcher pass per particle from the primary result
     #: (engine.EngineConfig.refine_matcher brought to the RBPF: both local
@@ -402,9 +402,9 @@ def gmapping_step(
         )
         if cfg.insert_impl == "onehot":
             # separable one-hot extraction: sub = Er @ cells @ Ec^T. One-hot
-            # f32 matmuls are exact on the MXU (verified bitwise on chip —
-            # CLAUDE.md), and under vmap this is one batched [P,wi,H]x
-            # [P,H,W] matmul instead of P serialized window gathers.
+            # f32 matmuls at HIGHEST precision are exact, and under vmap
+            # this is one batched [P,wi,H]x[P,H,W] matmul instead of P
+            # window gathers.
             er = (
                 (row + jnp.arange(wi))[:, None] == jnp.arange(h)[None, :]
             ).astype(jnp.float32)  # [wi, H]
@@ -412,7 +412,7 @@ def gmapping_step(
                 (col + jnp.arange(wi))[:, None] == jnp.arange(w)[None, :]
             ).astype(jnp.float32)  # [wi, W]
             # precision pinned so the non-one-hot operand is never truncated
-            # to bf16 by a different XLA/TPU default — exact by construction
+            # (TF32 on GPUs) by the backend default — exact by construction
             hi = jax.lax.Precision.HIGHEST
             sub = jnp.einsum("rh,hwc->rwc", er, gm_p.cells, precision=hi)
             sub = jnp.einsum("sw,rwc->rsc", ec, sub, precision=hi)
@@ -615,31 +615,25 @@ def fast_config(
     proposal: str = "odom",
     stride: int = 2,
 ) -> GMappingConfig:
-    """The single-chip TPU fast operating point at 30 particles: f32
-    one-hot overlap scoring, 5 Monte-Carlo rounds, usable-range-capped
-    insertion (GMapping's maxUrange) with pose-centered insert/match
-    windows sized to cover it exactly, and stride-``stride`` beam
-    subsampling in the matcher (the reference SPE's skip knob).
+    """The fast operating point at 30 particles: f32 one-hot overlap
+    scoring, 5 Monte-Carlo rounds, usable-range-capped insertion
+    (GMapping's maxUrange) with pose-centered insert/match windows sized
+    to cover it exactly, and stride-``stride`` beam subsampling in the
+    matcher (the reference SPE's skip knob).
 
-    Round-3 operating-point hunt (TPU_BENCH_VARIANTS `gmapping_r3_*`,
-    `gmapping_ms_*` multiseed rows):
-    - usable_range 6 m is the QUALITY anchor: 5-seed winner ATE
-      mean/max = 0.158/0.299 m, vs 0.35+ at the round-2 default of 4 m
-      and 0.54 at 8 m. 160-cell windows (the r6 snap) are robust; the
-      tighter 128 snap diverges on 2/5 seeds (mean 0.87) — do not
-      shrink the match window below the usable reach.
-    - stride=2 is the SPEED lever at these window sizes: +41% step
-      throughput in the same chip window (288.5 vs 205.0 scans/s
-      degraded-chip; the r2-healthy-chip base measured 388 scans/s),
-      costing ~0.02 m of 5-seed mean ATE at 120 beams (0.179 vs 0.158)
-      and less at denser scans. stride=1 recovers the quality point.
+    How the point was chosen (5-seed 2-lap winner ATE):
+    - usable_range 6 m is the QUALITY anchor: mean/max = 0.158/0.299 m,
+      vs 0.35+ at 4 m and 0.54 at 8 m. 160-cell windows are robust; the
+      tighter 128 snap diverges on 2/5 seeds (mean 0.87) — do not shrink
+      the match window below the usable reach.
+    - stride=2 halves the scoring work, costing ~0.02 m of 5-seed mean
+      ATE at 120 beams (0.179 vs 0.158) and less at denser scans.
+      stride=1 recovers the quality point.
     - part of stride-2's headroom is spent back on the search: MC
       batch=20 with a TIGHTER proposal sigma (0.06/0.03 — the score
       surface at these window/stride shapes is informative at cell
-      scale, and the narrower search converges harder). Measured
-      (gmapping_ms_s2_sig06_b20_b360): 5-seed winner ATE
-      mean/max = 0.106/0.119 m — every seed at or under the 0.11 bar,
-      vs 0.127/0.184 for the sigma-0.08/batch-16 point.
+      scale, and the narrower search converges harder): mean/max =
+      0.106/0.119 m, vs 0.127/0.184 for the sigma-0.08/batch-16 point.
 
     Window arithmetic: reach = (usable_range + hole_width)/scale +
     margin; windows snap up to cover 2x reach.
@@ -657,18 +651,16 @@ def fast_config(
         ),
         match_window=win,
         insert_window=win,
-        # one-hot MXU window extraction on both paths: the vmap(dynamic_
-        # slice) form serializes per particle (measured: 2.47 -> 1.68 ms/
-        # step from the insert alone, scripts/r2_parts2.py); bitwise-equal
+        # one-hot matmul window extraction on both paths (bitwise-equal to
+        # 'slice'); which form is faster on the GPU is not yet measured
         match_window_impl="onehot",
         insert_impl="onehot",
         beam=raycast.BeamConfig(max_range=usable_range),
         proposal=proposal,
     )
     if proposal == "improved":
-        # round-3 multiseed: gamma=16/thr=0.8 (the round-2 improved
-        # shipping point) measured 2x worse than odom; gamma=8/thr=0.5 is
-        # the best measured improved point at fast shapes — and still
+        # 5-seed: gamma=16/thr=0.8 measured 2x worse than odom;
+        # gamma=8/thr=0.5 is the best measured improved point at fast shapes — and still
         # loses to 'odom' (5-seed winner ATE mean 0.40 vs 0.16; DESIGN
         # §9b). The knob stays (the improved proposal WINS at the
         # default/quality shapes under high odometry noise, DESIGN §9),
@@ -677,9 +669,8 @@ def fast_config(
 
         warnings.warn(
             "fast_config(proposal='improved') measured WORSE than 'odom' "
-            "at the fast operating point (5-seed winner ATE 0.40 vs 0.16, "
-            "TPU_BENCH_VARIANTS gmapping_ms_base_imp vs _base; DESIGN "
-            "§9b). Use proposal='odom' unless odometry noise is far above "
+            "at the fast operating point (5-seed winner ATE 0.40 vs 0.16; "
+            "DESIGN §9b). Use proposal='odom' unless odometry noise is far above "
             "the bench's.", stacklevel=2,
         )
         cfg = dataclasses.replace(
@@ -691,9 +682,7 @@ def fast_config(
 def _fast_scoring(stride: int = 1):
     from ..ops import scoring as scoringlib
 
-    # f32: measured the same step time as bf16 at this operating point
-    # (426.0 vs 417.4 scans/s, gmapping_abl_f32 vs _fast) with identical
-    # 2-lap ATE — the simpler numerics story wins when it costs nothing
+    # f32: the same 2-lap ATE as bf16 operands, and exact numerics
     return scoringlib.ScoringConfig(
         reducer="overlap", window=1, dtype="float32", stride=stride
     )

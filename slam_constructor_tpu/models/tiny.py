@@ -42,7 +42,7 @@ def tiny_config(
         ),
         beam=raycast.BeamConfig(
             occupancy_estimator="const", hole_width=hole_width, wall_blur=True,
-            free_impl="auto",
+            free_impl="dda",
         ),
         map_height=map_size,
         map_width=map_size,
@@ -65,10 +65,8 @@ def fast_config(
     """Windowed tiny operating point (the gmapping.fast_config discipline
     brought to the single-hypothesis engine): usable-range-capped beams +
     a prior-centered match window covering exactly that reach + beam
-    stride in the matcher. Matching's memory-bound sampling operands
-    shrink by (map/window)^2 — the lever that matters when the chip
-    window is HBM-bandwidth-starved (r3 measurement note in
-    EngineConfig.match_window).
+    stride in the matcher. Matching's sampling operands shrink by
+    (map/window)^2.
 
     Defaults (3-seed CPU 2-lap ATE vs the full-map default's 0.070):
     range 8 / stride 1 = 0.071-0.108; range 6 or stride 2 at 120-beam
@@ -91,6 +89,6 @@ def fast_config(
         match_window=win,
         beam=raycast.BeamConfig(
             max_range=usable_range, occupancy_estimator="const",
-            hole_width=hole_width, wall_blur=True, free_impl="auto",
+            hole_width=hole_width, wall_blur=True, free_impl="dda",
         ),
     )

@@ -26,12 +26,11 @@ def viny_config(
     stride: int = 2,
 ) -> EngineConfig:
     """``stride``: matcher beam subsampling (the reference SPE's skip
-    knob). Default 2 as of r5: at 360-beam scans the committed 5-seed
-    rows are indistinguishable from stride 1 (viny_ms_s2_bn/_qn
-    0.1180/0.1175 mean vs ship 0.1178/0.1169) at +78% throughput
-    (viny_speed/s2 729-753 vs ship 408-420 scans/s same-window). For
-    sparse scans (<=120 beams) prefer stride=1 — the single-hypothesis
-    matcher has no particle diversity to absorb a lossy score (see
+    knob). Default 2: at 360-beam scans the 5-seed 2-lap ATE is
+    indistinguishable from stride 1 (0.1180/0.1175 mean vs 0.1178/0.1169
+    at bench / 2x odometry noise) for half the scoring work. For sparse
+    scans (<=120 beams) prefer stride=1 — the single-hypothesis matcher
+    has no particle diversity to absorb a lossy score (see
     tiny.fast_config docstring)."""
     if scoring_cfg is None:
         scoring_cfg = scoring.ScoringConfig(
@@ -52,7 +51,7 @@ def viny_config(
         # config choice for the estimator-parity matrix
         beam=raycast.BeamConfig(
             occupancy_estimator="const", hole_width=hole_width, wall_blur=True,
-            free_impl="auto",
+            free_impl="dda",
         ),
         map_height=map_size,
         map_width=map_size,
@@ -81,38 +80,32 @@ def viny_m3rsm_config(
     use_angle_histogram: bool = True,
     reducer: str = "overlap",
 ) -> EngineConfig:
-    """vinySLAM + the M3RSM global matcher at the single-chip operating
-    point: usable-range-capped beams (GMapping's maxUrange discipline,
-    shared with gmapping.fast_config) + a prior-centered search window
-    sized so the windowed level scoring is EXACT (M3RSMConfig.window doc).
+    """vinySLAM + the M3RSM global matcher: usable-range-capped beams
+    (GMapping's maxUrange discipline, shared with gmapping.fast_config)
+    + a prior-centered search window sized so the windowed level scoring
+    is EXACT (M3RSMConfig.window doc).
 
-    r5 QUALITY FIX, two independent root causes (the preset had only
-    ever been speed-benched — r4 Weak #8):
-    1. Config: the r2-r4 defaults (usable_range=4, reducer='obstacle',
-       stride=1) fail even on CPU — range 4 diverges with any scoring
-       (1.97/0.84 at overlap; the cecum loop needs >= 6 m of reach) and
-       the 'obstacle' point-sample reducer costs 0.376 vs 0.071 at
-       range 8. Fixed point: overlap reducer + stride 2 + range >= 5.
-    2. Insert algorithm: free_impl='auto' resolves to the polar free
-       fill on TPU, whose wall-halo erosion aliases the global B&B —
-       the config-fixed preset still read 5-seed ATE 3.8-5.2 on chip
-       (viny_ms_m3_r5fix_* / viny_ms_m3sw_* rows) while measuring 0.07
-       on CPU, where 'auto' = dda. Pinned to 'dda' (see the BeamConfig
-       comment below); with it the TPU run is bitwise equal to CPU
-       (scripts/r5/m3_divergence.py).
+    Two constraints fix this operating point:
+    1. Config: usable_range=4, reducer='obstacle' or stride=1 fail —
+       range 4 diverges with any scoring (the cecum loop needs >= 6 m of
+       reach at overlap) and the 'obstacle' point-sample reducer costs
+       0.376 vs 0.071 m ATE at range 8. Fixed point: overlap reducer +
+       stride 2 + range >= 5.
+    2. Insert algorithm: the free fill must be the per-beam DDA. The
+       dense polar fill's wall-halo erosion aliases the global B&B (5-seed
+       ATE 3.8-5.2 m against 0.07 m with DDA on the same config).
 
-    Shipped operating point (scripts/r5/m3_sweep.py stages 1-3, all
-    on-chip): usable_range=5 + beam_width=48 + n_theta=9. On-chip
-    5-seed ATE 0.0704/0.0706 mean/max at bench noise and 0.0721/0.0751
-    at 2x quality noise (viny_ms_m3sw_r5_bw48_dda3_* rows) — better
-    than the plain viny preset — at ~635-700 scans/s. The B&B frontier
-    is NOT the quality constraint at these shapes: beam_width 32-96
-    measured bitwise-identical ATE on every seed (48 ships to keep one
-    notch of frontier margin over the narrowest measured point; the
-    admissibility argument says wider only helps). Rejected levers,
-    each by 5-seed gate: stride 3 (outlier seeds 0.108-0.114),
-    refine 6 (no speed gain), usable_range 4 (diverges even on CPU),
-    refine 4 (0.0872 on one seed).
+    Operating point: usable_range=5 + beam_width=48 + n_theta=9. On the
+    smoke sequence (512 scans over 0.7 lap of the cecum world, 360 beams,
+    256^2 at 0.1 m, odometry noise 0.01 m / 0.005 rad) it is bimodal: on
+    the CPU 4 of 5 noise seeds read ATE 0.127-0.128 m (the error grows to
+    ~0.16 m between scans ~200 and ~450, then recovers) and one reads
+    0.072 m; an NVIDIA H100 (700 W limit) reads 0.1281 m on seed 0. The
+    B&B frontier is not the quality constraint at these shapes:
+    beam_width 32-96 gave identical ATE on every seed (48 keeps one notch
+    of margin over the narrowest measured point). Rejected levers, each
+    by 5-seed gate: stride 3 (outlier seeds 0.108-0.114), refine 6 (no
+    gain), usable_range 4 (diverges), refine 4 (0.0872 on one seed).
     """
     import math
 
@@ -133,19 +126,11 @@ def viny_m3rsm_config(
         ),
         beam=raycast.BeamConfig(
             max_range=usable_range, occupancy_estimator="const",
-            # PINNED to the per-beam DDA free fill (not 'auto'): 'auto'
-            # resolves to the dense polar fill on TPU, whose conservative
-            # neighbor-min range erosion leaves an unknown halo around
-            # walls seen at grazing angles (corridor walls!). Local
-            # sigma-bounded matchers never rank hypotheses across that
-            # halo; the M3RSM global B&B does, and aliases — the preset
-            # read 5-seed ATE 3.8-5.2 m on EVERY chip window while the
-            # same config measured 0.07 on CPU (where 'auto' = dda). With
-            # dda the TPU trajectory is BITWISE equal to CPU's
-            # (scripts/r5/m3_divergence.py; viny_ms_m3_dda_* rows). Polar
-            # stays the right call for the local-matcher presets (its
-            # committed 5-seed rows pass, and it is the tiny preset's
-            # ~300x insert-FLOP win).
+            # the per-beam DDA free fill: the dense polar fill's
+            # conservative neighbor-min range erosion leaves an unknown
+            # halo around walls seen at grazing angles. Local sigma-bounded
+            # matchers never rank hypotheses across that halo; the M3RSM
+            # global B&B does, and aliases (see the docstring)
             hole_width=hole_width, wall_blur=True, free_impl="dda",
         ),
         map_height=map_size,

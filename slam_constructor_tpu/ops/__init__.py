@@ -7,7 +7,6 @@ from . import (  # noqa: F401
     grid,
     matchers,
     m3rsm,
-    pallas_kernels,
     raycast,
     relocalize,
     scan,

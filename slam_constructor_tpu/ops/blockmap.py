@@ -13,7 +13,7 @@ react to (re-shard event), mirroring how dense-map growth works.
 
 Scoring reads through ``extract_window``: the B-aligned region around the
 robot is gathered from the pool into a dense plane so every matcher/scorer
-(including the MXU sampling path) runs unchanged. The block table is also
+(including the matmul sampling path) runs unchanged. The block table is also
 the unit of multi-host map sharding and of copy-on-write particle maps
 (tables are copied, blocks shared) — see SURVEY.md §2.9.
 """
@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import struct
 from . import grid as gridlib
 from .cells import init_cell as _model_init_cell
 

@@ -6,12 +6,12 @@ Parity with the reference's cell-model layer (SURVEY.md §2.3/§2.6:
 / ``AvgTinyCell`` in ``src/slams/tiny/tiny_grid_cell.h``; the TBM cell of
 ``src/slams/viny/viny_grid_cell.h`` [unverified]).
 
-Re-design for TPU: the reference updates one heap-allocated cell object per
+Re-design for the accelerator: the reference updates one heap-allocated cell object per
 beam via virtual ``operator+=``; here a whole scan's observations are first
 scatter-accumulated into two dense planes — per-cell observation weight
 ``w`` and weight-summed observed occupancy ``s`` — and the model then applies
-a closed-form *w-fold* update to every cell at once (fused elementwise, VPU
-friendly). For homogeneous per-cell observations within one scan this is
+a closed-form *w-fold* update to every cell at once (one fused elementwise
+pass). For homogeneous per-cell observations within one scan this is
 exactly k sequential reference updates; mixed free/hit observations of one
 cell in one scan are merged through their weighted mean, which is the scheme's
 only (benign, sub-resolution) approximation.

@@ -1,7 +1,7 @@
 """Copy-on-write block-pool maps for the particle filter.
 
 SURVEY.md §3.4/§7: the reference RBPF deep-copies whole per-particle maps on
-resampling ("expensive copy"); the TPU-native answer is ONE shared block
+resampling ("expensive copy"); the array-native answer is ONE shared block
 pool + per-particle block *tables* with copy-on-write:
 
 - resampling copies int32 tables (a gather of [P, TH, TW] indices) and
@@ -21,8 +21,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import struct
 from . import grid as gridlib
 from .cells import init_cell as _init_cell_of
 

@@ -21,7 +21,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from .. import struct
 
 Array = jax.Array
 

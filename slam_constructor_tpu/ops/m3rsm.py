@@ -186,12 +186,9 @@ def _score_level(
     nc = corners.shape[0]
     idx = (fine[:, :, None, :] + corners[None, None, :, :]) >> level
 
-    use_matmul = impl == "matmul" or (
-        impl == "auto" and jax.default_backend() == "tpu"
-    )
-    if use_matmul:
-        # same TPU-gather avoidance as scoring.py: one-hot MXU sampling of
-        # the level plane at each coarse corner cell
+    if impl == "matmul":
+        # opt-in, as in scoring.py: one-hot matmul sampling of the level
+        # plane at each coarse corner cell
         from .scoring import ScoringConfig, _sample_matmul_chunked
 
         cfg1 = ScoringConfig(reducer="obstacle", unknown_prob=unknown_prob)

@@ -11,7 +11,7 @@ Parity targets (SURVEY.md §2.4, §3.3 [unverified paths]):
 Re-design: the reference evaluates ONE candidate per scoring call inside a
 serial loop. Here every round scores a BATCH of candidates with a single
 ``score_poses`` dispatch inside ``lax.scan`` (fixed trip count — predictable
-compile, no host round-trips), so the TPU always sees a [K, R, W] gather.
+compile, no host round-trips), so the device always sees a [K, R, W] gather.
 The M3RSM global matcher lives in ``m3rsm.py``.
 """
 
@@ -21,8 +21,8 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import struct
 from . import scoring
 from .geometry import wrap_angle
 
@@ -39,6 +39,21 @@ class MatchResult:
     trace: Array = struct.field(default_factory=lambda: jnp.zeros((0,)))
 
 
+def _score_with_incumbent(view, scan, pose, cand, cfg, point_weights):
+    """Scores of ``pose`` and of ``cand [K, 3]`` from ONE ``score_poses``
+    call, as ``(prob, probs[K])``.
+
+    A matcher accepts a candidate only if it scores strictly above the
+    incumbent. Both scores must come from the same reduction: scored in
+    separate programs, a flat score surface (an empty map, where every
+    beam reads ``unknown_prob``) can read an ulp apart, and the matcher
+    then walks off to a random candidate."""
+    probs = scoring.score_poses(
+        view, scan, jnp.concatenate([pose[None], cand]), cfg, point_weights
+    )
+    return probs[0], probs[1:]
+
+
 # --- Monte-Carlo ------------------------------------------------------------
 
 
@@ -47,7 +62,7 @@ class MonteCarloConfig:
     sigma_xy: float = 0.2
     sigma_theta: float = 0.1
     #: candidates scored per round (the reference scores 1 per iteration;
-    #: batching is the TPU-native replacement for more iterations)
+    #: batching is the data-parallel replacement for more iterations)
     batch: int = 32
     rounds: int = 12
     #: rounds without improvement before sigma is halved
@@ -68,20 +83,20 @@ def monte_carlo_match(
     cfg: MonteCarloConfig = MonteCarloConfig(),
     point_weights: Array | None = None,
 ) -> MatchResult:
-    init_prob = scoring.score_single(view, scan, init_pose, cfg.scoring, point_weights)
-
     def round_fn(carry, key_r):
-        best_pose, best_prob, sigma, bad = carry
+        best_pose, _, sigma, bad = carry
         noise = jax.random.normal(key_r, (cfg.batch, 3)) * sigma
         cand = jnp.concatenate(
             [best_pose[None, :2] + noise[:, :2],
              wrap_angle(best_pose[None, 2:] + noise[:, 2:])], axis=-1
         )
-        probs = scoring.score_poses(view, scan, cand, cfg.scoring, point_weights)
+        inc, probs = _score_with_incumbent(
+            view, scan, best_pose, cand, cfg.scoring, point_weights
+        )
         i = jnp.argmax(probs)
-        better = probs[i] > best_prob
+        better = probs[i] > inc
         best_pose = jnp.where(better, cand[i], best_pose)
-        best_prob = jnp.where(better, probs[i], best_prob)
+        best_prob = jnp.where(better, probs[i], inc)
         bad = jnp.where(better, 0, bad + 1)
         anneal = bad >= cfg.bad_rounds_before_anneal
         sigma = jnp.where(anneal, sigma * 0.5, sigma)
@@ -91,7 +106,7 @@ def monte_carlo_match(
     sigma0 = jnp.array([cfg.sigma_xy, cfg.sigma_xy, cfg.sigma_theta], jnp.float32)
     keys = jax.random.split(key, cfg.rounds)
     (pose, prob, _, _), trace = jax.lax.scan(
-        round_fn, (init_pose, init_prob, sigma0, jnp.int32(0)), keys
+        round_fn, (init_pose, jnp.float32(-jnp.inf), sigma0, jnp.int32(0)), keys
     )
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
@@ -118,7 +133,6 @@ def hill_climbing_match(
     point_weights: Array | None = None,
 ) -> MatchResult:
     del key  # deterministic
-    init_prob = scoring.score_single(view, scan, init_pose, cfg.scoring, point_weights)
     # the six axis-step candidates, as offsets scaled by the live step sizes
     units = jnp.array(
         [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
@@ -126,20 +140,23 @@ def hill_climbing_match(
     )
 
     def iter_fn(carry, _):
-        pose, prob, steps = carry
+        pose, _, steps = carry
         cand = pose[None, :] + units * steps[None, :]
         cand = cand.at[:, 2].set(wrap_angle(cand[:, 2]))
-        probs = scoring.score_poses(view, scan, cand, cfg.scoring, point_weights)
+        inc, probs = _score_with_incumbent(
+            view, scan, pose, cand, cfg.scoring, point_weights
+        )
         i = jnp.argmax(probs)
-        better = probs[i] > prob
+        better = probs[i] > inc
         pose = jnp.where(better, cand[i], pose)
-        prob = jnp.where(better, probs[i], prob)
+        prob = jnp.where(better, probs[i], inc)
         steps = jnp.where(better, steps, steps * cfg.shrink)
         return (pose, prob, steps), prob
 
     steps0 = jnp.array([cfg.step_xy, cfg.step_xy, cfg.step_theta], jnp.float32)
     (pose, prob, _), trace = jax.lax.scan(
-        iter_fn, (init_pose, init_prob, steps0), None, length=cfg.iterations
+        iter_fn, (init_pose, jnp.float32(-jnp.inf), steps0), None,
+        length=cfg.iterations,
     )
     return MatchResult(pose=pose, prob=prob, trace=trace)
 
@@ -191,7 +208,7 @@ def brute_force_match(
     return MatchResult(pose=cand_p[i], prob=probs[i])
 
 
-# --- gradient-guided (TPU/JAX-native; no reference counterpart) --------------
+# --- gradient-guided (JAX-native; no reference counterpart) ------------------
 
 
 @dataclasses.dataclass(frozen=True)

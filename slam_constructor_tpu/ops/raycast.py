@@ -53,31 +53,27 @@ class BeamConfig:
     #: number of blur samples along the tail when wall_blur is set
     blur_samples: int = 4
     #: 'auto' | 'scatter' | 'matmul': how observation samples accumulate
-    #: into planes. TPU scatter serializes; the matmul path rebuilds the
-    #: plane as one-hot outer products on the MXU (A^T @ diag(v) B).
+    #: into planes. 'auto' (= 'scatter') on every backend: XLA scatter-add
+    #: for the free-space unit counts, and an order-independent sorted
+    #: segment sum for the occupied evidence (fractional weights), so runs
+    #: are bitwise repeatable. 'matmul' is an opt-in that rebuilds the
+    #: plane as bf16 one-hot outer products (A^T @ diag(v) B; exact for
+    #: unit counts, bf16-rounded fractional weights).
     scatter_impl: str = "auto"
-    #: 'dda' (per-beam line samples, reference-faithful Bresenham analogue),
-    #: 'polar' (dense per-cell polar fill: a cell is free iff it lies
-    #: closer than the range of the beam covering its angle — an
-    #: elementwise pass over the map, ~300x fewer FLOPs than scattering
-    #: the DDA samples through the MXU one-hot path; assumes uniformly
-    #: spaced bearings), 'polar_pallas' (the range-lookup chain as ONE
-    #: Pallas launch — bitwise-equal to 'polar' but measured 5.5x SLOWER
-    #: on chip (SOL_r04 insert_tiny_blur_pallas 0.425 vs _polar 0.077 ms):
-    #: the per-sublane one-hot matvecs serialize inside the kernel while
-    #: XLA's chunked form vectorizes wide; kept as an opt-in reference
-    #: negative result — see DESIGN.md §13), or 'auto' (XLA polar on
-    #: TPU, dda elsewhere). Free-space only; endpoints keep their
-    #: estimator.
+    #: free-space ALGORITHM: 'dda' (per-beam line samples,
+    #: reference-faithful Bresenham analogue) or 'polar' (dense per-cell
+    #: polar fill: a cell is free iff it lies closer than the range of the
+    #: beam covering its angle — an elementwise pass over the map; assumes
+    #: uniformly spaced bearings, and its conservative neighbor-min range
+    #: leaves an unknown halo at grazing walls, see DESIGN.md §16).
+    #: Free-space only; endpoints keep their estimator.
     free_impl: str = "dda"
 
-    def resolved_free_impl(self, h: int | None = None) -> str:
-        del h
-        if self.free_impl == "auto":
-            import jax
-
-            return "polar" if jax.default_backend() == "tpu" else "dda"
-        return self.free_impl
+    def __post_init__(self):
+        if self.free_impl not in ("dda", "polar"):
+            raise ValueError(f"free_impl must name an algorithm, got {self.free_impl!r}")
+        if self.scatter_impl not in ("auto", "scatter", "matmul"):
+            raise ValueError(f"unknown scatter_impl {self.scatter_impl!r}")
 
     def n_free_samples(self, scale: float) -> int:
         return int(math.ceil(self.max_range / (scale * self.step_fraction))) + 1
@@ -89,7 +85,7 @@ _SCATTER_CHUNK = 16384
 def _scatter_matmul(plane_shape, rows, cols, vals, valid):
     """Accumulate N point values into an [H, W] plane as sum_i
     onehot(r_i) ⊗ onehot(c_i) * v_i — two exact one-hot factors contracted
-    on the MXU. bf16 one-hots are exact; accumulation is f32."""
+    as a matmul. bf16 one-hots are exact; accumulation is f32."""
     h, w = plane_shape
     rows = rows.ravel()
     cols = cols.ravel()
@@ -125,8 +121,8 @@ def _scatter_matmul(plane_shape, rows, cols, vals, valid):
 
 def _scatter_matmul_multi(plane_shape, rows, cols, vals, valid):
     """``_scatter_matmul`` for V value channels at once: one dot_general
-    producing ``f32[H, W, V]`` — the round-3 insert fusion (one MXU pass +
-    one one-hot construction replace V separate scatter dispatches).
+    producing ``f32[H, W, V]`` (one matmul pass + one one-hot construction
+    replace V separate scatter dispatches).
 
     vals: f32[N, V]; valid: bool[N].
     """
@@ -168,11 +164,12 @@ def _scatter_matmul_multi(plane_shape, rows, cols, vals, valid):
 def _flat_scatter_add(plane_shape, rows, cols, vals, valid, impl: str = "auto"):
     """Scatter-add ``vals`` (any shape) into an ``f32[H, W]`` image.
 
-    impl='scatter': XLA scatter with mode='drop' (exact, fast on CPU/GPU).
-    impl='matmul' / 'auto' on TPU: MXU one-hot contraction (bf16 value
-    rounding on non-integer vals; counts of 1.0 are exact).
+    impl='scatter' / 'auto': XLA scatter-add with mode='drop' (used for the
+    free-space counts: unit values sum exactly in any order).
+    impl='matmul': one-hot contraction (bf16 value rounding on non-integer
+    vals; counts of 1.0 are exact).
     """
-    if impl == "matmul" or (impl == "auto" and jax.default_backend() == "tpu"):
+    if impl == "matmul":
         return _scatter_matmul(plane_shape, rows, cols, vals, valid)
     h, w = plane_shape
     lin = rows * w + cols
@@ -182,6 +179,42 @@ def _flat_scatter_add(plane_shape, rows, cols, vals, valid, impl: str = "auto"):
         jnp.where(valid, vals, 0.0).ravel(), mode="drop"
     )
     return flat.reshape(h, w)
+
+
+def _sorted_segment_add(plane_shape, rows, cols, vals, valid):
+    """Scatter-add ``vals f32[N, V]`` into ``f32[H, W, V]`` with float sums
+    that do not depend on execution order.
+
+    XLA's GPU scatter-add accumulates with atomics, so non-integer values
+    landing on one cell (endpoint hits plus wall-blur ramps) sum in a
+    different order on every run. Here the samples are stably sorted by
+    cell (each cell keeps its samples in arrival order), each cell's values
+    are summed by a segmented scan (a fixed tree), and every cell is
+    written once.
+    """
+    h, w = plane_shape
+    rows, cols = rows.ravel(), cols.ravel()
+    n = rows.shape[0]
+    ok = valid.ravel() & (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    lin = jnp.where(ok, rows * w + cols, h * w)  # h * w: dropped below
+    vals = jnp.where(ok[:, None], vals, 0.0)
+    order = jnp.argsort(lin, stable=True)
+    lin, vals = lin[order], vals[order]
+    new_cell = jnp.concatenate([jnp.ones((1,), bool), lin[1:] != lin[:-1]])
+
+    def combine(a, b):
+        (av, af), (bv, bf) = a, b
+        return jnp.where(bf[..., None], bv, av + bv), af | bf
+
+    sums, _ = jax.lax.associative_scan(combine, (vals, new_cell))
+    last = jnp.concatenate([lin[1:] != lin[:-1], jnp.ones((1,), bool)])
+    # each cell's last sample writes its sum (the dropped samples' segment
+    # writes to h * w); every other sample gets its own index past h * w,
+    # so the indices stay unique and all out-of-range ones are dropped
+    dest = jnp.where(last, lin, h * w + 1 + jnp.arange(n, dtype=lin.dtype))
+    flat = jnp.zeros((h * w, vals.shape[1]), jnp.float32)
+    flat = flat.at[dest].set(sums, mode="drop", unique_indices=True)
+    return flat.reshape(h, w, vals.shape[1])
 
 
 def _endpoint_area_obs(gm, endpoints, valid, hole_width):
@@ -275,17 +308,13 @@ def scan_sample_cells(origin, scale, pose, scan: scanlib.LaserScan, cfg: BeamCon
     )
 
 
-def _polar_free_plane(h, w, origin, scale, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
-    """Dense polar free-space weights (``free_impl='polar'``).
+def _polar_cells(h, w, origin, scale, pose, scan: scanlib.LaserScan):
+    """Per-cell polar geometry of the map around ``pose``.
 
-    For every cell: distance d and bearing from the pose; the cell is free
-    iff ``d < range(nearest beam) - hole_width/2`` (and inside the FOV /
-    max_range). The weight is the expected number of beams crossing the
-    cell — ``2*atan(scale/2d) / beam_spacing`` — matching the DDA path's
-    one-count-per-crossing-beam totals in expectation. Range lookup per
-    cell is a chunked one-hot matvec (a 65k-element gather serializes on
-    TPU). Invalid beams contribute no free evidence (range -> 0), same as
-    the DDA validity mask. Uniform bearing spacing assumed.
+    Returns ``(d, bini, ok, wgt, rng_eff)``: distance from the pose, the
+    index of the beam whose bearing covers the cell, whether that beam's
+    sector contains the cell (FOV), the expected number of beams crossing
+    the cell, and the per-beam conservative range.
     """
     from .geometry import wrap_angle
 
@@ -316,7 +345,19 @@ def _polar_free_plane(h, w, origin, scale, pose, scan: scanlib.LaserScan, cfg: B
     rng_eff = jnp.where(
         scan.valid, jnp.minimum(scan.ranges, jnp.minimum(prev_r, next_r)), 0.0
     )
+    wgt = (
+        2.0
+        * jnp.arctan(scale / (2.0 * jnp.maximum(d, scale * 0.5)))
+        / jnp.abs(db)
+    )
+    return d, bini, ok, wgt, rng_eff
 
+
+def _polar_range_lookup(bini: Array, rng_eff: Array) -> Array:
+    """``rng_eff[bini]`` as a chunked one-hot matvec at HIGHEST precision,
+    which returns every range exactly (TF32 would cut a 15 m range by up
+    to ~7 mm)."""
+    r = rng_eff.shape[0]
     flat = bini.reshape(-1)
     n = flat.shape[0]
     chunk = min(8192, n)
@@ -327,71 +368,29 @@ def _polar_free_plane(h, w, origin, scale, pose, scan: scanlib.LaserScan, cfg: B
 
     def take(bc):
         oh = (bc[:, None] == iota_r[None, :]).astype(jnp.float32)
-        return jnp.dot(oh, rng_eff, preferred_element_type=jnp.float32)
+        return jnp.dot(
+            oh, rng_eff, preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )
 
-    cell_range = jax.lax.map(take, flat.reshape(-1, chunk)).reshape(-1)[:n]
-    cell_range = cell_range.reshape(h, w)
+    return jax.lax.map(take, flat.reshape(-1, chunk)).reshape(-1)[:n].reshape(bini.shape)
+
+
+def _polar_free_plane(h, w, origin, scale, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
+    """Dense polar free-space weights (``free_impl='polar'``).
+
+    For every cell: distance d and bearing from the pose; the cell is free
+    iff ``d < range(nearest beam) - hole_width/2`` (and inside the FOV /
+    max_range). The weight is the expected number of beams crossing the
+    cell — ``2*atan(scale/2d) / beam_spacing`` — matching the DDA path's
+    one-count-per-crossing-beam totals in expectation. Invalid beams
+    contribute no free evidence (range -> 0), same as the DDA validity
+    mask. Uniform bearing spacing assumed.
+    """
+    d, bini, ok, wgt, rng_eff = _polar_cells(h, w, origin, scale, pose, scan)
+    cell_range = _polar_range_lookup(bini, rng_eff)
     free = ok & (d < cell_range - cfg.hole_width / 2.0) & (d < cfg.max_range)
-    wgt = (
-        2.0
-        * jnp.arctan(scale / (2.0 * jnp.maximum(d, scale * 0.5)))
-        / jnp.abs(db)
-    )
     return jnp.where(free, wgt, 0.0)
-
-
-def _polar_free_plane_pallas(
-    h, w, origin, scale, pose, scan: scanlib.LaserScan, cfg: BeamConfig
-):
-    """``_polar_free_plane`` with the chunked lax.map range-lookup chain
-    (the launch-bound part — SOL_r03 measured insert at 6.7% of roofline
-    on launch overhead) collapsed into ONE Pallas launch
-    (``pallas_kernels.polar_free_lookup``). The trig planes (bearing bin,
-    distance, crossing weight) are computed by the SAME XLA expressions as
-    the polar path, so the result is bitwise-equal to ``free_impl='polar'``
-    (equivalence-tested, tests/test_raycast.py)."""
-    from . import pallas_kernels
-    from .geometry import wrap_angle
-
-    r = scan.bearings.shape[0]
-    ys = origin[1] + (jnp.arange(h, dtype=jnp.float32) + 0.5) * scale
-    xs = origin[0] + (jnp.arange(w, dtype=jnp.float32) + 0.5) * scale
-    dy = ys[:, None] - pose[1]
-    dx = xs[None, :] - pose[0]
-    d = jnp.sqrt(dx * dx + dy * dy)
-    ang = jnp.arctan2(dy, dx) - pose[2]
-    b0 = scan.bearings[0]
-    db = (scan.bearings[-1] - b0) / jnp.maximum(r - 1, 1)
-    db = jnp.where(jnp.abs(db) < 1e-6, 1.0, db)
-    binf = wrap_angle(ang - b0) / db
-    bini = jnp.round(binf).astype(jnp.int32)
-    in_fov = (bini >= 0) & (bini <= r - 1)
-    full_circle = jnp.abs(db) * r >= 2.0 * jnp.pi - 1.5 * jnp.abs(db)
-    ok = in_fov | full_circle
-    bini = jnp.where(full_circle, jnp.mod(bini, r), jnp.clip(bini, 0, r - 1))
-    rng_inf = jnp.where(scan.valid, scan.ranges, jnp.inf)
-    prev_r = jnp.where(
-        full_circle, jnp.roll(rng_inf, 1),
-        jnp.concatenate([rng_inf[:1], rng_inf[:-1]]),
-    )
-    next_r = jnp.where(
-        full_circle, jnp.roll(rng_inf, -1),
-        jnp.concatenate([rng_inf[1:], rng_inf[-1:]]),
-    )
-    rng_eff = jnp.where(
-        scan.valid, jnp.minimum(scan.ranges, jnp.minimum(prev_r, next_r)), 0.0
-    )
-    wgt = (
-        2.0
-        * jnp.arctan(scale / (2.0 * jnp.maximum(d, scale * 0.5)))
-        / jnp.abs(db)
-    )
-    wgt_masked = jnp.where(ok, wgt, 0.0)
-    return pallas_kernels.polar_free_lookup(
-        rng_eff, bini, d, wgt_masked,
-        jnp.float32(cfg.hole_width / 2.0), jnp.float32(cfg.max_range),
-        interpret=jax.default_backend() != "tpu",
-    )
 
 
 def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
@@ -408,10 +407,7 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     start = pose[:2]
 
     # --- free-space trace ---------------------------------------------------
-    free_impl = cfg.resolved_free_impl(h)
-    if free_impl == "polar_pallas":
-        w_free = _polar_free_plane_pallas(h, w, gm.origin, scale, pose, scan, cfg)
-    elif free_impl == "polar":
+    if cfg.free_impl == "polar":
         w_free = _polar_free_plane(h, w, gm.origin, scale, pose, scan, cfg)
     else:
         n_s = cfg.n_free_samples(scale)
@@ -437,9 +433,8 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     ep_valid = scan.valid & (scan.ranges <= cfg.max_range)
     endpoints = start + scan.ranges[:, None] * dirs  # [R, 2]
     # collect every occupied-evidence sample (endpoint/area + blur tail)
-    # into one flat batch: on the MXU path ONE fused dot_general then
-    # accumulates BOTH planes (w, s) in a single pass — round-3 insert
-    # fusion, vs. 3 separate scatter dispatches before
+    # into one flat batch: on the matmul path ONE fused dot_general then
+    # accumulates BOTH planes (w, s) in a single pass
     occ_r, occ_c, occ_w, occ_s, occ_v = [], [], [], [], []
     if cfg.occupancy_estimator == "area":
         r9, c9, wgt, occ = _endpoint_area_obs(gm, endpoints, ep_valid, cfg.hole_width)
@@ -482,19 +477,11 @@ def scan_observation_planes(gm, pose, scan: scanlib.LaserScan, cfg: BeamConfig):
     w_a = jnp.concatenate(occ_w)
     s_a = jnp.concatenate(occ_s)
     v_a = jnp.concatenate(occ_v)
-    use_matmul = cfg.scatter_impl == "matmul" or (
-        cfg.scatter_impl == "auto" and jax.default_backend() == "tpu"
+    accumulate = (
+        _scatter_matmul_multi if cfg.scatter_impl == "matmul" else _sorted_segment_add
     )
-    if use_matmul:
-        planes = _scatter_matmul_multi(
-            (h, w), rows_a, cols_a, jnp.stack([w_a, s_a], axis=-1), v_a
-        )
-        w_occ, s_occ = planes[..., 0], planes[..., 1]
-    else:
-        w_occ = _flat_scatter_add((h, w), rows_a, cols_a, w_a, v_a, "scatter")
-        s_occ = _flat_scatter_add((h, w), rows_a, cols_a, s_a, v_a, "scatter")
-
-    return w_free + w_occ, s_occ
+    planes = accumulate((h, w), rows_a, cols_a, jnp.stack([w_a, s_a], axis=-1), v_a)
+    return w_free + planes[..., 0], planes[..., 1]
 
 
 def insert_scan(gm, model, pose, scan: scanlib.LaserScan, cfg: BeamConfig):

@@ -2,7 +2,7 @@
 
 No direct reference counterpart (the reference's M3RSM searches a bounded
 window); this is the capability extension for kidnapped-robot recovery and
-loop-closure proposals at map scale, designed for TPU: for each candidate
+loop-closure proposals at map scale, designed for the accelerator: for each candidate
 rotation the scan's endpoint histogram is cross-correlated with the map's
 occupancy value plane via zero-padded 2D FFTs — every translation in the
 map scored in O(HW log HW), all rotations batched. The argmax seeds the

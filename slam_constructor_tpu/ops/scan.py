@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from .. import struct
 
 Array = jax.Array
 

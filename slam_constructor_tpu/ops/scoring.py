@@ -12,7 +12,7 @@ doing pointer-chased per-cell virtual calls. Here the unit of work is
 ``score_poses(map, scan, poses[K]) -> probs[K]``: all K candidate poses, all
 R beams, and the whole cell window are evaluated in one fused gather +
 reduction — the shape every matcher (Monte-Carlo, hill-climbing, brute-force,
-M3RSM) and the particle filter feed the TPU with.
+M3RSM) and the particle filter feed the device with.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from .. import struct
 from . import grid as gridlib
 from . import scan as scanlib
 from .geometry import apply_pose
@@ -43,14 +43,15 @@ class ScoringConfig:
     stride: int = 1
     #: side of the endpoint square for the overlap reducer, in cells
     overlap_extent: float = 1.0
-    #: 'auto' | 'matmul' | 'gather'. TPU random gather runs ~10 cycles per
-    #: element; the matmul path samples the plane with separable one-hot /
-    #: weighted one-hot matrix products on the MXU instead (exact for
-    #: obstacle/mean/overlap; 'max' is not separable and keeps the gather).
+    #: 'auto' | 'gather' | 'matmul'. 'auto' is the gather sampler on every
+    #: backend. 'matmul' is an opt-in that samples the plane with separable
+    #: one-hot / weighted one-hot matrix products instead (exact for
+    #: obstacle/mean/overlap at f32; 'max' is not separable and keeps the
+    #: gather).
     impl: str = "auto"
     #: matmul-path operand dtype: 'float32' (exact, default) or 'bfloat16'
-    #: (~2x MXU throughput; accumulation stays fp32, per-point error ~0.4%,
-    #: averaged scan scores shift <0.1% — matcher-decision safe in practice)
+    #: (accumulation stays fp32, per-point error ~0.4%, averaged scan
+    #: scores shift <0.1%)
     dtype: str = "float32"
 
 
@@ -81,8 +82,8 @@ def window_view(view: MapView, center_xy: Array, size: int) -> MapView:
     """Restrict a MapView to a ``size x size`` cell window around a world
     point (clamped to map bounds, jit-safe static output shape).
 
-    Scoring-cost optimisation for local matchers: the MXU sampling path's
-    FLOPs scale with the map area, but match candidates only ever land
+    Scoring-cost optimisation for local matchers: the matmul sampling
+    path's FLOPs scale with the map area, but match candidates only ever land
     within a beam's reach of the prior pose. Cells outside the window score
     as ``unknown_prob`` — identical to the full view's treatment of
     out-of-map points, so a window that covers the scan footprint is exact.
@@ -103,11 +104,10 @@ def window_view_onehot(view: MapView, center_xy: Array, size: int) -> MapView:
     """`window_view` with the extraction done by separable one-hot f32
     matmuls instead of dynamic_slice.
 
-    Bitwise-equal output (one-hot f32 matmuls are exact on the MXU). The
-    point: under ``vmap`` over particles a traced-offset ``dynamic_slice``
-    lowers to P serialized window gathers (measured 0.76 ms of a 1.32 ms
-    RBPF match at P=30), while this form is one batched matmul. Same trick
-    as ``gmapping.insert_impl='onehot'``.
+    Bitwise-equal output (one-hot f32 matmuls at HIGHEST precision are
+    exact). Under ``vmap`` over particles a traced-offset ``dynamic_slice``
+    lowers to P window gathers, while this form is one batched matmul.
+    Same trick as ``gmapping.insert_impl='onehot'``.
     """
     h, w = view.occ.shape
     sh, sw = min(size, h), min(size, w)
@@ -120,8 +120,8 @@ def window_view_onehot(view: MapView, center_xy: Array, size: int) -> MapView:
     ec = ((col + jnp.arange(sw))[:, None] == jnp.arange(w)[None, :]).astype(
         jnp.float32
     )  # [sw, W]
-    # precision pinned: bitwise extraction must not depend on the chip's
-    # default matmul precision truncating the map operand to bf16
+    # precision pinned: bitwise extraction must not depend on the backend's
+    # default matmul precision truncating the map operand (TF32 on GPUs)
     hi = jax.lax.Precision.HIGHEST
     occ = jnp.einsum(
         "sw,rw->rs", ec, jnp.einsum("rh,hw->rw", er, view.occ, precision=hi),
@@ -145,7 +145,7 @@ def _window_offsets(radius: int) -> Array:
     return jnp.stack(jnp.meshgrid(r, r, indexing="ij"), axis=-1).reshape(-1, 2)
 
 
-# --- MXU sampling path ------------------------------------------------------
+# --- matmul sampling path ---------------------------------------------------
 #
 # Sampling N plane values is recast as  val = (A @ plane) . B  where A
 # [N, H] and B [N, W] hold per-axis selection weights (a one-hot row for
@@ -205,9 +205,9 @@ def _sample_matmul(
         v = v.astype(jnp.bfloat16)
         prec = None  # operands already bf16; precision is moot
     else:
-        # f32 path is documented bitwise-equal to the gather path for the
-        # one-hot reducers — pin precision so that holds on any XLA/TPU
-        # default, not just the chip it was measured on (ADVICE r2)
+        # f32 path is bitwise-equal to the gather path for the one-hot
+        # reducers — pin precision so that holds whatever the backend's
+        # default matmul precision (TF32 on NVIDIA GPUs)
         prec = jax.lax.Precision.HIGHEST
     m = jnp.dot(a, v, preferred_element_type=jnp.float32, precision=prec)  # [N, W]
     ssum = (m * b).sum(-1)
@@ -238,17 +238,13 @@ def _sample_matmul_chunked(v: Array, rel: Array, cfg: "ScoringConfig") -> Array:
     return out.reshape(-1)[:n]
 
 
-# NOTE (round 2): a per-beam windowed scoring path ("beam windows": gather a
-# BxB window around every beam endpoint once per matcher round, then score
-# candidates against the stack with [R]-batched small matmuls) was built in
-# round 1 as the local-matcher FLOP-reduction story and DELETED here. On the
-# real chip the R-way vmap(dynamic_slice) window gather serialized and made
-# the path a measured 5.6x (tiny) to 130x (gmapping) END-TO-END REGRESSION
-# (TPU_BENCH_VARIANTS.jsonl, *_bw tags). The surviving FLOP reduction is
-# :func:`window_view` — ONE robot-centered dynamic slice per match, which
-# keeps the [N, H] x [H, W] one-hot sampling on the MXU and shrinks H, W to
-# the window — measured 2x per-step on the RBPF workload with no gather in
-# sight. See DESIGN.md "Beam windows post-mortem".
+# NOTE: a per-beam windowed scoring path ("beam windows": gather a BxB
+# window around every beam endpoint once per matcher round, then score
+# candidates against the stack) was built and deleted: the R-way
+# vmap(dynamic_slice) window gather made it an end-to-end regression. The
+# surviving reduction is :func:`window_view` — ONE robot-centered dynamic
+# slice per match, which shrinks H, W to the window. See DESIGN.md "Beam
+# windows post-mortem".
 
 
 def _strided_scan(scan: scanlib.LaserScan, stride: int) -> scanlib.LaserScan:
@@ -287,46 +283,7 @@ def score_poses(
     world = apply_pose(poses[:, None, :], pts[None, :, :])  # [K, R, 2]
     rel = (world - view.origin) / view.scale  # fractional cell coords
 
-    # ROOT CAUSE FOUND (r4): the r3 "Pallas sequential-tracking collapse"
-    # (ATE 0.45 vs 0.07 on chip; auto-flip reverted same-hour) was the
-    # kernel's dot_general running at DEFAULT MXU precision — operands
-    # silently truncated to bf16 (~1e-3 per-point bias; the one-shot probe's
-    # 6.7e-4 max |diff| was bf16-scale). preferred_element_type pins only
-    # the accumulator. With precision=HIGHEST in the kernel
-    # (pallas_kernels.py), measured on chip (TPU_MEASURES pallas_fix/*):
-    # max |diff| 6.0e-8, sequential tiny tracking BITWISE equal to the
-    # matmul path (traj maxdiff 0.0, ATE 0.0707 both), and still faster
-    # (2.56 vs 3.02 ms/step full-map tiny). 'auto' therefore prefers the
-    # VMEM sampler for LARGE exact-overlap f32 views again; the matmul
-    # path keeps the r3-measured win on small vmapped windows (pallas was
-    # 1.8x slower on the RBPF's 160^2 windows) and on bf16 configs.
-    auto_pallas = (
-        cfg.impl == "auto"
-        and cfg.reducer == "overlap"
-        and cfg.overlap_extent == 1.0
-        and cfg.dtype == "float32"
-        and jax.default_backend() == "tpu"
-        and h * w >= 200 * 200
-    )
-    if (cfg.impl == "pallas" or auto_pallas) and (
-        cfg.reducer == "overlap" and cfg.overlap_extent == 1.0
-    ):
-        from . import pallas_kernels
-
-        k, r = rel.shape[:2]
-        v = jnp.where(view.known, view.occ, cfg.unknown_prob)
-        point_p = pallas_kernels.sample_for_scoring(
-            v, rel.reshape(k * r, 2), cfg.unknown_prob
-        ).reshape(k, r)
-        return _weighted_mean(point_p, scan, cfg, point_weights)
-
-    use_matmul = cfg.impl == "matmul" or (
-        cfg.impl == "auto"
-        and cfg.reducer in ("obstacle", "mean", "overlap")
-        # the MXU sampling path wins on TPU; CPU/GPU gathers are cheap
-        and jax.default_backend() == "tpu"
-    )
-    if use_matmul:
+    if cfg.impl == "matmul":
         k, r = rel.shape[:2]
         v = jnp.where(view.known, view.occ, cfg.unknown_prob)
         point_p = _sample_matmul_chunked(v, rel.reshape(k * r, 2), cfg)

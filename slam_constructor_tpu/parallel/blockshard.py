@@ -19,7 +19,7 @@ PRIMARY map representation itself:
   jit-safe cumsum as the single-device map.
 - **Scoring exchanges halos.** Each device densifies its band's occupancy
   plane, swaps ``halo`` boundary rows with its ring neighbors via
-  ``ppermute`` (ICI neighbor traffic only), scores the scan endpoints whose
+  ``ppermute`` (neighbor traffic only), scores the scan endpoints whose
   center rows it owns, and a ``psum`` combines partial weighted sums —
   equal to the unsharded block-map scorer for any window radius <= halo
   (golden-tested in tests/test_parallel.py).
@@ -34,10 +34,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .. import struct
 from ..ops import blockmap as bmlib
 from ..ops import raycast
 from ..ops import scan as scanlib
@@ -235,8 +235,8 @@ def score_poses(
         own = (row_own >= row0) & (row_own < row0 + h_local)
 
         if _use_matmul(cfg):
-            # MXU one-hot sampling against the halo-extended band (no
-            # vector gather on the hot path — CLAUDE.md discipline)
+            # opt-in one-hot matmul sampling against the halo-extended
+            # band (impl='matmul')
             point_p = _ext_point_probs_matmul(ext, rel, row0, halo, h, cfg)
         else:
             wrow = row[..., None] + offs[None, None, :, 0]

@@ -7,7 +7,7 @@ normal equations ``H_p = sum J^T W J`` and ``b_p = sum J^T W e`` over local
 edges, and a single ``psum`` reduces them; the (small, dense) reduced system
 is then solved identically on every device — optionally through the
 Schur-complement block elimination so only the active-keyframe block is
-factored. Runs at loop-closure rate, so the psum may cross DCN.
+factored. Runs at loop-closure rate, so the psum may cross hosts.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def _partial_normal_equations(
             rw = jnp.minimum(1.0, huber_delta / chi)
             w = w * jnp.where(is_loop, rw, 1.0)
         return (
-            ji.T * w @ ji, ji.T * w @ jj, jj.T * w @ jj,
-            ji.T @ (w * e), jj.T @ (w * e),
+            pg._mm(ji.T * w, ji), pg._mm(ji.T * w, jj), pg._mm(jj.T * w, jj),
+            pg._mm(ji.T, w * e), pg._mm(jj.T, w * e),
         )
 
     hii, hij, hjj, bi, bj = jax.vmap(per_edge)(ei, ej, ez, einfo, emask, eloop)

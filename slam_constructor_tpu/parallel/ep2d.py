@@ -20,7 +20,7 @@ pool holding only the blocks of tile-row band ``b``:
   elsewhere), the sum is the complete dense window, and the per-particle
   match then runs band-replicated (windows are small — wt*B per side —
   so the replicated FLOPs are noise next to the scoring matmuls; the
-  psum rides ICI). This is the block-halo analogue for windows that
+  psum stays inside the host). This is the block-halo analogue for windows that
   straddle band boundaries.
 - **Resampling migrates blocks across particle groups WITHIN each band**
   (``all_gather`` over "pgroups" only): ancestry moves whole maps, but a
@@ -35,10 +35,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .. import struct
 from ..ops import cow as cowlib
 from ..ops import grid as gridlib
 from ..ops.cells import init_cell

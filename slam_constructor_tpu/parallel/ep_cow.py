@@ -29,10 +29,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .. import struct
 from ..ops import cow as cowlib
 from ..ops import grid as gridlib
 

@@ -7,7 +7,7 @@ owns rows ``[d*Hl, (d+1)*Hl)``. Scoring a candidate pose needs a window of
 ``r`` cells around each scan endpoint, so endpoints within ``r`` rows of a
 shard boundary read neighbor-owned cells. Instead of gathering the whole
 plane, each device exchanges ``halo`` boundary rows with its two ring
-neighbors via ``ppermute`` (ICI neighbor traffic only), scores the
+neighbors via ``ppermute`` (neighbor traffic only), scores the
 endpoints *it owns* against its extended local block, and a ``psum``
 combines the per-point partial sums — bitwise-equal to the unsharded
 scorer for any window radius <= halo.
@@ -33,19 +33,15 @@ Array = jax.Array
 
 
 def _use_matmul(cfg: ScoringConfig) -> bool:
-    return cfg.reducer in ("obstacle", "mean", "overlap") and (
-        cfg.impl == "matmul"
-        or (cfg.impl == "auto" and jax.default_backend() == "tpu")
-    )
+    return cfg.impl == "matmul" and cfg.reducer in ("obstacle", "mean", "overlap")
 
 
 def _ext_point_probs_matmul(
     ext: Array, rel: Array, row0, halo: int, h: int, cfg: ScoringConfig
 ) -> Array:
-    """Per-point probabilities [K, R] against a halo-extended local block —
-    the hot-path MXU discipline (CLAUDE.md) inside shard_map: the same
-    separable one-hot / box / overlap sampling matmuls as the unsharded
-    scorer, no vector gather.
+    """Per-point probabilities [K, R] against a halo-extended local block
+    (``impl='matmul'``) inside shard_map: the same separable one-hot / box /
+    overlap sampling matmuls as the unsharded scorer, no vector gather.
 
     ``ext`` rows map to global rows ``row0 - halo + i``; wrap-around rows a
     ring ppermute delivers to edge shards fall outside the global map and

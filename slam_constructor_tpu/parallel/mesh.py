@@ -3,10 +3,11 @@
 The reference is single-process/single-thread (SURVEY.md §2.9) — this whole
 layer is new capability. Axis conventions:
 
-- ``"hosts"``  — DCN-crossing axis: keyframe ranges for distributed BA, map
+- ``"hosts"``  — cross-host axis: keyframe ranges for distributed BA, map
   region ownership. Collectives on it run at loop-closure rate only.
-- ``"chips"`` — ICI axis: particles / candidate poses / map-block halos.
-  Collectives on it run every scan.
+- ``"chips"`` — intra-host axis (NVLink between the devices of one
+  host): particles / candidate poses / map-block halos. Collectives on it
+  run every scan.
 
 On a single host both axes live on one slice; tests fold everything onto
 ``chips`` with hosts=1 (or use the flat ``particles`` axis).

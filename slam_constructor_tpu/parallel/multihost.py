@@ -1,7 +1,7 @@
 """Multi-host runtime: process-group init, failure detection, recovery.
 
 SURVEY.md §5: the reference has no failure story (single process). The
-TPU-native plan: ``jax.distributed`` process groups over DCN; liveness
+plan: ``jax.distributed`` process groups across hosts; liveness
 checked by running a deadline-guarded collective; recovery = restart the
 process group and restore every engine state from the last checkpoint
 (states are pure pytrees — see utils/checkpoint, which is why recovery is

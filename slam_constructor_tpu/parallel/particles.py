@@ -11,7 +11,7 @@ Two complementary mechanisms:
 2. ``psum_normalize_log_weights`` / ``sharded_neff`` — explicit shard_map
    building blocks (psum-based weight normalization per BASELINE), used by
    the multi-host driver where the particle axis spans processes and we want
-   collectives pinned to the ``chips``/ICI axis.
+   collectives pinned to the intra-host ``chips`` axis.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def psum_normalize_log_weights(
     deterministic: bool = False,
 ):
     """Cross-shard weight normalization: stable logsumexp via a psum'd max
-    and a psum'd sum — the per-scan ICI collective of the distributed RBPF.
+    and a psum'd sum — the per-scan intra-host collective of the distributed RBPF.
 
     ``deterministic=True`` swaps the XLA all-reduce (association order is an
     implementation detail) for the fixed-order ladder reduction in

@@ -125,7 +125,10 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
 
-    from .utils import evaluate, metrics as metricslib, trajectory as tio, viz
+    from .utils import compile_cache, evaluate
+    from .utils import metrics as metricslib, trajectory as tio, viz
+
+    compile_cache.enable()
 
     key = jax.random.PRNGKey(0)
     scans, odom, gt = load_data(args, key)
@@ -147,7 +150,7 @@ def main(argv=None):
         traj = engine.run(scans, odom)
     else:
         traj, aux = engine.run(scans, odom)
-    np.asarray(traj)  # completion barrier
+    jax.block_until_ready(traj)
     dt = time.perf_counter() - t0
 
     os.makedirs(args.out, exist_ok=True)

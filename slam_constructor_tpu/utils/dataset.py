@@ -11,32 +11,20 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
-import subprocess
 from dataclasses import dataclass
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libslamio.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "carmen_parser.cpp")
+from .. import native
 
 
 def _load_native():
     """Build (once) and load the native parser; None if no toolchain."""
-    if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(
-        _SRC_PATH
-    ):
-        try:
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB_PATH, _SRC_PATH],
-                check=True,
-                capture_output=True,
-            )
-        except (OSError, subprocess.CalledProcessError):
-            return None
+    path = native.build("carmen_parser.cpp", "libslamio.so")
+    if path is None:
+        return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
     except OSError:
         return None
     lib.slamio_parse_carmen.restype = ctypes.c_void_p

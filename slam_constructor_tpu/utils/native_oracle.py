@@ -4,14 +4,10 @@
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_LIB = os.path.join(_DIR, "libslamscore.so")
-_SRC = os.path.join(_DIR, "score_oracle.cpp")
+from .. import native
 
 _cache = None
 
@@ -20,17 +16,12 @@ def lib():
     global _cache
     if _cache is not None:
         return _cache or None
-    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-        try:
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB, _SRC],
-                check=True, capture_output=True,
-            )
-        except (OSError, subprocess.CalledProcessError):
-            _cache = False
-            return None
+    path = native.build("score_oracle.cpp", "libslamscore.so")
+    if path is None:
+        _cache = False
+        return None
     try:
-        l = ctypes.CDLL(_LIB)
+        l = ctypes.CDLL(path)
     except OSError:
         _cache = False
         return None

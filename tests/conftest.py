@@ -1,5 +1,5 @@
 """Test harness: force the CPU backend with 8 virtual devices so sharding
-logic is exercised without TPU hardware (SURVEY.md §4 "distributed tests").
+logic is exercised without accelerators (SURVEY.md §4 "distributed tests").
 
 Must run before anything imports jax — pytest imports conftest first.
 """

@@ -138,14 +138,14 @@ def test_full_pipeline_tbm_tracking(loop_sequence):
 
 
 def test_graph_does_not_degrade_accurate_tracking():
-    """r5 regression (R5_NOTES §10): with the pre-r5 defaults the pose
+    """Regression: with the earlier graph defaults the pose
     graph DOUBLED the ATE of an already-sub-cell-accurate tracker on the
     2-lap 360-beam bench (0.141 vs 0.071, seed 42) — curvature-estimated
     loop information was allowed 10x the calibrated baseline and the
     Huber kernel never engaged, so the optimizer dragged keyframes to
     BF-grid-quantized loop deltas. The graph must be (at worst) neutral
     when tracking is already good; 360 beams matters — at 120 beams the
-    effect is invisible, which is how it survived to r5."""
+    effect is invisible, which is how it went unnoticed."""
     occ, origin, scale = datagen.cecum_world()
     lap = datagen.rectangle_trajectory(step=0.3)
     posesq = jnp.tile(lap, (2, 1))

@@ -266,16 +266,39 @@ def test_m3rsm_window_equals_full():
 
 
 def test_viny_m3rsm_preset_pins_dda_free_fill():
-    """free_impl='auto' is an ALGORITHM swap (dense polar fill on TPU, DDA
-    elsewhere), not an impl swap — so with 'auto' the CPU suite validates a
-    DIFFERENT insert than the chip runs. For the global M3RSM matcher that
-    gap was fatal: the polar fill's wall-halo erosion aliased the B&B and
-    the preset read 5-seed ATE 3.8-5.2 m on chip while measuring 0.07 on
-    CPU (r5 root cause — scripts/r5/m3_divergence.py; with dda the TPU
-    trajectory is bitwise equal to CPU's). The preset must pin 'dda' so
-    what this suite validates is exactly what ships on TPU."""
+    """free_impl names a free-space ALGORITHM, and the preset must name
+    the per-beam DDA: the polar fill's wall-halo erosion aliases the
+    global M3RSM branch-and-bound (5-seed ATE 3.8-5.2 m against 0.07 m
+    with DDA). 'auto' is no longer accepted, so no backend can swap the
+    algorithm behind the preset."""
     from slam_constructor_tpu.models import viny
 
     cfg = viny.viny_m3rsm_config()
     assert cfg.beam.free_impl == "dda"
-    assert cfg.beam.resolved_free_impl() == "dda"
+    with pytest.raises(ValueError):
+        raycast.BeamConfig(free_impl="auto")
+
+
+def test_viny_m3rsm_ate_short_sequence():
+    """The viny_m3rsm preset at its shipped shapes (360 beams, 256^2 map at
+    0.1 m) tracks the first 128 scans of the cecum sequence: ATE 0.069 m
+    against 0.132 m dead reckoning. A matcher that drifts off the prior on
+    the empty first map reads several times that."""
+    from slam_constructor_tpu.models import engine as eng
+    from slam_constructor_tpu.models import viny
+    from slam_constructor_tpu.ops.geometry import compose
+    from slam_constructor_tpu.utils import evaluate
+
+    occ, origin, scale = datagen.cecum_world()
+    poses = datagen.rectangle_trajectory(step=27.2 * 0.7 / 512)[:128]
+    scans, odom, gt = datagen.synth_sequence(
+        occ, origin, scale, poses, datagen.default_bearings(360),
+        jax.random.PRNGKey(0), odom_noise_xy=0.01, odom_noise_theta=0.005,
+    )
+    cfg = viny.viny_m3rsm_config(map_size=256)
+    st = eng.init_state(cfg).replace(pose=gt[0])
+    _, traj, _ = eng.run_sequence(cfg, st, scans, odom)
+    _, dead = jax.lax.scan(lambda p, d: (compose(p, d),) * 2, gt[0], odom[1:])
+    ate = float(evaluate.ate(traj, gt, align=False))
+    ate_odo = float(evaluate.ate(jnp.concatenate([gt[:1], dead]), gt, align=False))
+    assert ate < 0.1 and ate < 0.6 * ate_odo, (ate, ate_odo)

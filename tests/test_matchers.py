@@ -110,3 +110,43 @@ def test_gradient_recovers_pose(setup):
 
 def test_gradient_matcher_registered():
     assert "gradient" in matchers.MATCHERS
+
+
+@pytest.fixture(scope="module")
+def empty_map():
+    """An empty map (every beam reads unknown_prob), a scan, and
+    non-uniform per-beam weights like vinySLAM's angle histogram."""
+    occ, origin, scale = datagen.box_world(8.0, 0.1, obstacles=5, seed=2)
+    pose = jnp.array([0.3, -0.2, 0.15])
+    s = raycast.cast_rays(occ, origin, scale, pose, datagen.default_bearings(360))
+    model = cells.TBMCell()
+    view = scoring.MapView.of(grid.make_grid_map(model, 80, 80, 0.1), model)
+    pw = jax.random.uniform(jax.random.PRNGKey(5), (360,), minval=0.2, maxval=3.0)
+    return view, s, pose, pw
+
+
+@pytest.mark.parametrize("reducer", ["obstacle", "mean", "overlap", "max"])
+def test_flat_map_scores_equal(empty_map, reducer):
+    """On a flat score surface a pose scored alone and every row of a
+    candidate batch read the same value."""
+    view, s, pose, pw = empty_map
+    cfg = scoring.ScoringConfig(reducer=reducer, stride=2)
+    cand = pose + jax.random.normal(jax.random.PRNGKey(1), (32, 3)) * 0.1
+    one = scoring.score_single(view, s, pose, cfg, pw)
+    rows = scoring.score_poses(view, s, cand, cfg, pw)
+    np.testing.assert_array_equal(np.asarray(rows), np.full(32, float(one)))
+
+
+@pytest.mark.parametrize("matcher", ["monte_carlo", "hill_climbing"])
+@pytest.mark.parametrize("reducer", ["obstacle", "overlap"])
+def test_flat_map_keeps_incumbent(empty_map, matcher, reducer):
+    """A matcher accepts a candidate only if it scores strictly above the
+    incumbent, so on an empty map it returns the prior pose unchanged
+    (the first scan of a sequence is matched against an empty map)."""
+    view, s, pose, pw = empty_map
+    cfg_cls, match = matchers.MATCHERS[matcher]
+    cfg = cfg_cls(scoring=scoring.ScoringConfig(reducer=reducer, stride=2))
+    f = jax.jit(lambda v, sc, p, k, w: match(v, sc, p, k, cfg, w))
+    res = f(view, s, pose, jax.random.PRNGKey(0), pw)
+    np.testing.assert_array_equal(np.asarray(res.pose), np.asarray(pose))
+    assert float(res.prob) == pytest.approx(0.5)

@@ -117,7 +117,7 @@ def test_winner_trajectory_genealogy(sequence):
 
 def test_gmapping_windowed_matching_tracks():
     # match_window + bf16 scoring: in a bounded world whose scan footprint
-    # fits the window, the TPU fast path must track like the full-map path.
+    # fits the window, the windowed fast path must track like the full-map path.
     # (Corridor worlds are the counterexample — far beams carry the only
     # longitudinal constraint — so match_window stays opt-in; see DESIGN.md.)
     from slam_constructor_tpu.ops import matchers, scoring
@@ -180,7 +180,7 @@ def test_gmapping_windowed_insert_matches_full(sequence):
 
 
 def test_gmapping_onehot_insert_matches_slice(sequence):
-    """insert_impl='onehot' (separable one-hot MXU extract + masked matmul
+    """insert_impl='onehot' (separable one-hot matmul extract + masked matmul
     write-back) must be bitwise-equal to the dynamic-slice window insert:
     the one-hot matmuls and the 0/1 write-back mask are exact in f32."""
     from slam_constructor_tpu.ops import raycast
@@ -218,7 +218,7 @@ def test_rbpf_beats_single_hypothesis_under_noise():
     tracker accumulates map corruption. Two laps (the second lap's revisit
     is where weights discriminate); genealogy-winner trajectory is the
     RBPF's canonical output. Measured margins at this seed: tiny ~0.95 m
-    vs RBPF ~0.09 m (scripts/r2_rbpf_vs_single.py, 6/6 seeds in favor)."""
+    vs RBPF ~0.09 m (6/6 seeds in favor)."""
     import dataclasses
 
     from slam_constructor_tpu.models import engine as eng, tiny

@@ -90,7 +90,7 @@ def test_synth_sequence_shapes():
 
 
 def test_scatter_matmul_matches_scatter():
-    """MXU one-hot scatter path vs XLA scatter: exact for unit counts,
+    """One-hot matmul scatter path vs XLA scatter: exact for unit counts,
     bf16-rounded (<0.5%) for fractional blur/area weights."""
     occ, origin, scale = datagen.box_world(8.0, 0.1, obstacles=3, seed=1)
     bearings = datagen.default_bearings(120)
@@ -105,6 +105,43 @@ def test_scatter_matmul_matches_scatter():
             occupancy_estimator=est, wall_blur=blur, scatter_impl="matmul"))
         d = float(jnp.abs(a.cells - b.cells).max())
         assert d <= tol, (est, blur, d)
+
+
+def test_sorted_segment_add_exact_and_order_independent():
+    """The occupied-evidence accumulation: unit counts sum exactly, the
+    fractional wall-blur weights within float32 rounding of float64, and
+    the result is BITWISE the same on a second call and for any order of
+    the samples that keeps each cell's samples in their order (an atomic
+    scatter-add on a GPU sums them in a different order on every run)."""
+    rng = np.random.default_rng(0)
+    n, h, w = 3000, 40, 50
+    rows = rng.integers(-3, h + 3, n).astype(np.int32)
+    cols = rng.integers(-3, w + 3, n).astype(np.int32)
+    vals = np.stack([rng.choice([1.0, 2 / 3, 4 / 9, 0.0], n),
+                     np.ones(n)], -1).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    got = np.asarray(raycast._sorted_segment_add(
+        (h, w), jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals),
+        jnp.asarray(valid)))
+    ok = valid & (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    want = np.zeros((h, w, 2))
+    np.add.at(want, (rows[ok], cols[ok]), vals[ok].astype(np.float64))
+    np.testing.assert_array_equal(got[..., 1], want[..., 1])  # unit counts
+    np.testing.assert_allclose(got[..., 0], want[..., 0], atol=1e-5)
+    again = np.asarray(raycast._sorted_segment_add(
+        (h, w), jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals),
+        jnp.asarray(valid)))
+    np.testing.assert_array_equal(again, got)
+    lin = np.where(ok, rows * w + cols, h * w)
+    for seed in range(3):
+        # a random order of the cells, each cell's samples in arrival order
+        # (the invalid samples, one segment, too)
+        rank = np.random.default_rng(seed + 1).permutation(h * w + 1)
+        p = np.argsort(rank[lin], kind="stable")
+        shuffled = np.asarray(raycast._sorted_segment_add(
+            (h, w), jnp.asarray(rows[p]), jnp.asarray(cols[p]),
+            jnp.asarray(vals[p]), jnp.asarray(valid[p])))
+        np.testing.assert_array_equal(shuffled, got)
 
 
 def test_polar_free_fill_agrees_with_dda():
@@ -148,63 +185,34 @@ def test_polar_free_fill_partial_fov():
     assert free[:, 65:].sum() > 100
 
 
-def test_polar_pallas_free_plane_matches_xla_polar():
-    """The fused one-launch Pallas range lookup (free_impl='polar_pallas')
-    must reproduce the XLA polar pass BITWISE: the trig planes feeding it
-    are computed by the same XLA expressions, and the in-kernel one-hot
-    lookup + selects are exact. (An earlier in-kernel-trig draft hit fp
-    knife edges at the free boundary — 1 cell in 12k — from XLA's FMA
-    contraction of d^2; structuring the kernel to consume the SAME planes
-    removed the tolerance entirely.)"""
-    import numpy as np
-
-    from slam_constructor_tpu.ops import cells as cellslib
-    from slam_constructor_tpu.ops import grid as gridlib
-    from slam_constructor_tpu.utils import datagen
-
+@pytest.mark.parametrize("nb", [360, 120, 90])
+def test_polar_free_plane_matches_numpy_take(nb):
+    """The polar fill's one-hot range lookup must return every beam's range
+    exactly: the plane equals one built from the same per-cell geometry
+    with a NumPy ``take`` lookup, bitwise (the HIGHEST precision pin; a
+    TF32 product would shorten ranges by millimetres)."""
     occ, origin, scale = datagen.cecum_world()
-    gm = gridlib.make_grid_map(cellslib.BayesAvgCell(), 96, 128, 0.1)
+    gm = grid.make_grid_map(cells.BayesAvgCell(), 96, 128, 0.1)
     cfg = raycast.BeamConfig(wall_blur=True, free_impl="polar")
-    for nb in (360, 120, 90):
-        bearings = datagen.default_bearings(nb)
-        pose = jnp.array([0.3, -1.45, 0.7])
-        s = raycast.cast_rays(occ, origin, scale, pose, bearings)
-        s = s.replace(valid=s.valid & (jnp.arange(nb) % 7 != 3))
-        a = np.asarray(
-            raycast._polar_free_plane(96, 128, gm.origin, 0.1, pose, s, cfg)
-        )
-        b = np.asarray(
-            raycast._polar_free_plane_pallas(
-                96, 128, gm.origin, 0.1, pose, s, cfg
-            )
-        )
-        np.testing.assert_array_equal(a, b, err_msg=f"{nb} beams")
-
-
-def test_insert_scan_polar_pallas_close_to_polar():
-    """Full insert through the pallas free lookup equals the polar insert
-    (same planes, same occupied evidence, same fold)."""
-    import numpy as np
-
-    from slam_constructor_tpu.ops import cells as cellslib
-    from slam_constructor_tpu.ops import grid as gridlib
-    from slam_constructor_tpu.utils import datagen
-
-    occ, origin, scale = datagen.cecum_world()
-    model = cellslib.BayesAvgCell()
-    bearings = datagen.default_bearings(180)
-    pose = jnp.array([0.0, -1.5, 0.2])
+    bearings = datagen.default_bearings(nb)
+    pose = jnp.array([0.3, -1.45, 0.7])
     s = raycast.cast_rays(occ, origin, scale, pose, bearings)
-    gm = gridlib.make_grid_map(model, 96, 128, 0.1)
-    a = raycast.insert_scan(
-        gm, model, pose, s, raycast.BeamConfig(wall_blur=True, free_impl="polar")
+    s = s.replace(valid=s.valid & (jnp.arange(nb) % 7 != 3))
+    got = np.asarray(
+        raycast._polar_free_plane(96, 128, gm.origin, 0.1, pose, s, cfg)
     )
-    b = raycast.insert_scan(
-        gm, model, pose, s,
-        raycast.BeamConfig(wall_blur=True, free_impl="polar_pallas"),
+    d, bini, ok, wgt, rng = (
+        np.asarray(a)
+        for a in raycast._polar_cells(96, 128, gm.origin, 0.1, pose, s)
     )
-    diff = np.abs(np.asarray(a.cells) - np.asarray(b.cells))
-    assert (diff > 1e-4).sum() <= diff.size * 1e-3
+    cell_range = np.take(rng, bini)
+    np.testing.assert_array_equal(
+        np.asarray(raycast._polar_range_lookup(jnp.asarray(bini), jnp.asarray(rng))),
+        cell_range,
+    )
+    free = ok & (d < cell_range - cfg.hole_width / 2.0) & (d < cfg.max_range)
+    np.testing.assert_array_equal(got, np.where(free, wgt, 0.0))
+    assert free.sum() > 100
 
 
 def test_polar_missing_free_concentrates_at_walls():
@@ -214,8 +222,7 @@ def test_polar_missing_free_concentrates_at_walls():
     global matchers rank across (aliasing wall-adjacent translations)
     while sigma-bounded local matchers never see. The halo must stay a
     small, wall-adjacent fraction; if this starts failing, the polar
-    approximation changed character and every 'auto' preset needs its
-    on-chip 5-seed row re-run."""
+    approximation changed character."""
     occ, origin, scale = datagen.box_world(8.0, 0.1, obstacles=3, seed=2)
     bearings = datagen.default_bearings(360)
     pose = jnp.array([0.4, -0.3, 0.2])

@@ -1,4 +1,5 @@
-"""Gather vs MXU-matmul scoring paths must agree to fp32 rounding."""
+"""Gather vs one-hot matmul scoring paths must agree to fp32 rounding, and
+'auto' must be the gather sampler."""
 
 import jax
 import jax.numpy as jnp
@@ -59,13 +60,15 @@ def test_matmul_chunked_path(setup):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-6)
 
 
-def test_pallas_matches_gather(setup):
-    """Fused Pallas bilinear kernel (interpret mode on CPU) == gather path."""
+@pytest.mark.parametrize("reducer", ["obstacle", "mean", "overlap"])
+def test_auto_is_gather(setup, reducer):
+    """impl='auto' resolves to the gather sampler on every backend, so the
+    default scores are bitwise the gather path's."""
     view, s, cand = setup
     got = scoring.score_poses(
-        view, s, cand, scoring.ScoringConfig(reducer="overlap", impl="pallas")
+        view, s, cand, scoring.ScoringConfig(reducer=reducer, impl="auto")
     )
     want = scoring.score_poses(
-        view, s, cand, scoring.ScoringConfig(reducer="overlap", impl="gather")
+        view, s, cand, scoring.ScoringConfig(reducer=reducer, impl="gather")
     )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-6)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

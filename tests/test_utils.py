@@ -195,9 +195,61 @@ def test_metrics_logger(tmp_path):
 
 
 def test_sol_report():
-    r = profiling.sol_report("score", measured_s=1e-3, flops=1e9, bytes_accessed=1e7)
+    spec = profiling.device_specs("NVIDIA H100 80GB HBM3")
+    r = profiling.sol_report(
+        "score", measured_s=1e-3, flops=1e9, bytes_accessed=1e7, spec=spec
+    )
     assert 0 < r["sol_fraction"] <= 1e3
     assert r["bound"] in ("compute", "memory")
+    assert r["device"] == "h100_sxm"
+
+
+@pytest.mark.parametrize(
+    "kind,name,bf16,f32,hbm",
+    [
+        ("NVIDIA H100 80GB HBM3", "h100_sxm", 989e12, 67e12, 3.35e12),
+        ("NVIDIA H100 PCIe", "h100_pcie", 756e12, 51e12, 2.0e12),
+    ],
+)
+def test_device_specs_h100(kind, name, bf16, f32, hbm):
+    spec = profiling.device_specs(kind)
+    assert (spec.name, spec.peak_flops_bf16, spec.peak_flops_f32,
+            spec.hbm_bandwidth) == (name, bf16, f32, hbm)
+
+
+@pytest.mark.parametrize("kind", ["cpu", "AMD Instinct MI300X", "NVIDIA A100-SXM4-80GB"])
+def test_device_specs_unknown_kind_raises(kind):
+    """A device with no published-peak row is an error, never a default:
+    a roofline share against a guessed peak would be meaningless."""
+    with pytest.raises(KeyError):
+        profiling.device_specs(kind)
+
+
+def test_device_info_names_the_backend():
+    info = profiling.device_info()
+    assert info == {
+        "platform": "cpu",
+        "kind": jax.devices()[0].device_kind,
+        "count": len(jax.devices()),
+    }
+
+
+def test_compile_cache_honours_environment(monkeypatch, tmp_path):
+    from slam_constructor_tpu.utils import compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.cache_dir() == str(tmp_path)
+
+
+def test_compile_cache_fixed_path_in_checkout(monkeypatch):
+    from slam_constructor_tpu.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    a, b = compile_cache.cache_dir(), compile_cache.cache_dir()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert a == b == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
 
 
 def test_step_timer():
